@@ -1,15 +1,15 @@
-"""misaki_tpu — a TPU-native differentiable spectral path tracer.
+"""misaki_tpu — a differentiable spectral path tracer in JAX.
 
-A brand-new JAX/Pallas wavefront renderer with the capabilities of the
+A wavefront renderer with the capabilities of the
 misaki-render reference (a Mitsuba-2-style C++/Embree spectral path tracer):
 same scene description language, same BSDF/emitter/integrator feature set,
-same hero-wavelength spectral transport — but redesigned TPU-first:
+same hero-wavelength spectral transport — but redesigned for accelerators:
 
   * the virtual-dispatch object graph becomes a **scene compiler**
     (XML -> frozen SoA device arrays + static integer tables),
   * Embree becomes our own BVH builder + vectorized wavefront traversal,
-  * TBB tile parallelism becomes jit-batched wavefronts on one chip and
-    `shard_map` over a device mesh across chips,
+  * TBB tile parallelism becomes jit-batched wavefronts on one device and
+    `shard_map` over a device mesh across devices,
   * the whole pipeline is differentiable (detached sampling) so pixel
     gradients flow to BSDF/emitter parameters.
 

@@ -10,8 +10,8 @@ Output layout (flat SoA, types.BVH):
 Children are stored so that traversal can pick the near child first.
 
 Small scenes (<= BRUTE_FORCE_THRESHOLD faces) get an empty BVH: the
-traverser then uses an all-faces brute-force intersection loop, which on TPU
-is faster than pointer chasing for tiny scenes (pure VPU streaming).
+traverser then uses an all-faces brute-force intersection loop, which beats
+pointer chasing for tiny scenes (pure elementwise streaming).
 """
 
 import numpy as np

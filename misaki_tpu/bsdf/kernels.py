@@ -1,8 +1,8 @@
 """Wavefront BSDF kernels: sample / eval / pdf over SoA lane batches.
 
 The reference dispatches virtually per ray (BSDF::sample etc., bsdf.h:82-97);
-the TPU-native design computes every material model on every lane and selects
-by the per-lane material kind — each model is a handful of VPU flops, there
+the wavefront design computes every material model on every lane and selects
+by the per-lane material kind — each model is a handful of flops, there
 are no branches, and XLA fuses the whole thing into the bounce megakernel.
 
 Layout: directions are vec3 component tuples, spectra are (4, L) arrays
@@ -100,7 +100,7 @@ ALL_KINDS = (
 
 
 def material_params(scene, ids, uv, wavelengths, duv=None):
-    """ONE one-hot fetch of all packed material columns, then pure VPU
+    """ONE gather of all packed material columns, then elementwise
     slot evaluation (render/textures.py). Returns the per-lane param dict
     shared by sample/eval/pdf for the bounce.
 

@@ -43,11 +43,13 @@ def main(argv=None):
     )
     args = p.parse_args(argv)
 
+    from misaki_tpu.utils.compile_cache import setup_compile_cache
     from misaki_tpu.utils.logging import Timer, get_logger
     from misaki_tpu.scene.compiler import load_and_compile
     from misaki_tpu.render import film as film_mod
     from misaki_tpu.render.driver import render
 
+    setup_compile_cache()
     log = get_logger()
     params = dict(kv.split("=", 1) for kv in args.define)
     if args.include_dir:

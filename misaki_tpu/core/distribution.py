@@ -2,8 +2,8 @@
 (reference: include/misaki/core/distribution.h).
 
 Build-time (NumPy): CDF tables. Render-time (jnp): vectorized searchsorted
-with sample reuse — the TPU replacement for the reference's per-call binary
-search.
+with sample reuse — the wavefront replacement for the reference's per-call
+binary search.
 """
 
 import jax.numpy as jnp

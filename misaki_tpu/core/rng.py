@@ -2,14 +2,15 @@
 
 The reference uses one scalar PCG32 per worker thread (with a clone() quirk
 that makes all workers share the same sequence — deliberately NOT replicated,
-see SURVEY.md section 7b). Our TPU-native design gives every wavefront lane its
+see SURVEY.md section 7b). Here every wavefront lane gets its
 own decorrelated PCG32 stream, seeded from (sample_index, stream_id), so the
 render is deterministic for a given seed regardless of device count, chunking,
-or sharding. The same streams run on CPU (the oracle) and TPU, bit-exact.
+or sharding. The same streams run on the CPU (the oracle) and the GPU,
+bit-exact.
 
-TPU has no 64-bit integers, so the 64-bit PCG state is carried as two uint32
-arrays (hi, lo) and the 64-bit arithmetic is done in 16/32-bit limbs — a
-handful of VPU ops per draw.
+JAX runs without 64-bit integers by default, so the 64-bit PCG state is
+carried as two uint32 arrays (hi, lo) and the 64-bit arithmetic is done in
+16/32-bit limbs — a handful of integer ops per draw.
 """
 
 from functools import partial

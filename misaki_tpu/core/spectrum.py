@@ -2,10 +2,11 @@
 (reference: include/misaki/core/spectrum.h, src/librender/spectrum.cpp).
 
 Layout: spectral quantities are **wavelength-major** (4, L) arrays — the lane
-dimension stays minor so the VPU tiles densely (see core/vec.py). Colors at
+dimension stays minor and contiguous (see core/vec.py). Colors at
 the lane level are (r, g, b) component tuples; whole images are (H, W, 3).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -29,7 +30,7 @@ from misaki_tpu.core.table import hat_eval, hat_eval_multi
 
 def cie1931_xyz(wavelengths):
     """Linear interp into the 95-sample CIE table (spectrum.h:82-107),
-    expressed as a gather-free hat-basis sum (core/table.py rationale) —
+    expressed as a hat-basis sum (core/table.py hat_eval) —
     numerically identical to the reference's clamped lerp on [360, 830].
 
     wavelengths: (4, L). Returns (X, Y, Z), each (4, L).
@@ -93,11 +94,15 @@ def xyz_to_srgb(xyz):
 
 def xyz_to_srgb_image(img):
     """(H, W, 3) image variant (film develop)."""
-    return img @ jnp.asarray(XYZ_TO_SRGB).T
+    # HIGHEST: a float32 matmul may otherwise run in TF32 on GPUs, which
+    # keeps ~3 decimal digits of every developed pixel
+    return jnp.matmul(img, jnp.asarray(XYZ_TO_SRGB).T,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def srgb_to_xyz_image(img):
-    return img @ jnp.asarray(SRGB_TO_XYZ).T
+    return jnp.matmul(img, jnp.asarray(SRGB_TO_XYZ).T,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def sample_shifted(sample):
@@ -150,7 +155,8 @@ _D65 = jnp.asarray(D65_DATA)
 
 def eval_regular(values, lambda_min, lambda_max, wavelengths):
     """Regularly-sampled spectrum lerp (spectra/regular.cpp eval_pdf),
-    clamped to edge bins, gather-free. values: (N,); wavelengths: (4, L)."""
+    clamped to edge bins, as a hat-basis sum (core/table.py hat_eval).
+    values: (N,); wavelengths: (4, L)."""
     size = values.shape[-1]
     x = (wavelengths - lambda_min) * ((size - 1) / (lambda_max - lambda_min))
     return hat_eval(values, x)

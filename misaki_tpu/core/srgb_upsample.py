@@ -4,7 +4,7 @@ The reference loads a precomputed 3D coefficient table (`data/srgb.coeff`)
 built offline by ext/rgb2spec's optimizer, then evaluates a 3-coefficient
 sigmoid model per wavelength (include/misaki/render/srgb.h:8-19).
 
-TPU-native redesign: instead of shipping a 64^3 table, we fit the three
+Redesign: instead of shipping a 64^3 table, we fit the three
 coefficients **per distinct scene color at scene-compile time** with a damped
 Gauss-Newton solve (NumPy, float64) against the same objective the rgb2spec
 optimizer uses: the sigmoid spectrum, illuminated by D65 and integrated

@@ -1,71 +1,44 @@
-"""Gather-free table access primitives.
+"""Table access primitives.
 
-On this TPU backend per-lane `table[idx]` gathers are catastrophically slow
-(XLA lowers 1D gathers to serial loops), so the hot path never gathers:
-
-  * `fetch(table (C, N), idx (L,))` — one-hot MXU matmul: build a (N, L)
-    one-hot from an iota compare and contract it against the column table.
-    N is padded to 128; cost is one small matmul + the one-hot's HBM
-    round-trip (~1.5 ms for 262k lanes), independent of C up to ~100.
+  * `fetch(table (C, N), idx (L,))` — per-lane column gather: exact in
+    float32, O(C * L) work whatever N is, and differentiable in `table`
+    (the VJP is a scatter-add of the cotangent columns).
 
   * `hat_eval(values (N,), x (..., ))` — piecewise-linear table evaluation
     as an unrolled sum of hat (tent) basis functions: exactly equivalent to
     lerp-with-gather (regular.cpp eval_pdf semantics) but expressed as N
     fused FMA+relu vector ops. Used for the CIE 1931 and D65/regular
     spectrum lookups (95 bins).
-
-The BVH traversal still gathers (tables too large to one-hot); that path is
-flagged for a Pallas kernel (large-scene TPU perf is round-2 work).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 
 def fetch(table, idx, n_valid=None):
-    """table: (C, N) float32; idx: (L,) int32. Returns (C, L).
+    """table: (C, N); idx: (L,) int32. Returns (C, L) in table's dtype.
 
-    Out-of-range indices return column 0 semantics of the one-hot (all-zero
-    row) — callers mask invalid lanes anyway.
+    Indices outside [0, N) return an all-zero column (callers mask invalid
+    lanes anyway). The mask is explicit: `jnp.take(..., mode="fill")` wraps
+    negative indices instead of filling them.
     """
-    C, N = table.shape
-    L = idx.shape[0]
-    rows = jax.lax.broadcasted_iota(jnp.int32, (N, L), 0)
-    onehot = (rows == idx[None, :]).astype(table.dtype)
-    return jax.lax.dot_general(
-        table,
-        onehot,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    N = table.shape[1]
+    ok = (idx >= 0) & (idx < N)
+    cols = jnp.take(table, jnp.where(ok, idx, 0), axis=1, mode="clip")
+    return jnp.where(ok[None, :], cols, jnp.zeros((), table.dtype))
 
 
 def fetch_lowp(table, idx):
-    """`fetch` with bf16 operands: the one-hot is exactly representable and
-    the table loses mantissa to 8 bits — fine for image texels (8-bit
-    sources) and 4-8x cheaper on the MXU, which matters because the fused
-    one-hot dot's cost is O(N * L) in the table length. Returns float32."""
-    C, N = table.shape
-    L = idx.shape[0]
-    rows = jax.lax.broadcasted_iota(jnp.int32, (N, L), 0)
-    onehot = (rows == idx[None, :]).astype(jnp.bfloat16)
-    return jax.lax.dot_general(
-        table.astype(jnp.bfloat16),
-        onehot,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    """Texel-table fetch (bitmap atlas, volume grids): the same exact gather
+    as `fetch`, returning the stored float32 texels."""
+    return fetch(table, idx)
 
 
 def hat_eval(values, t):
     """Sum_k values[k] * max(0, 1 - |t - k|) — the exact piecewise-linear
     interpolation of `values` at fractional index `t` (clamped to the ends),
-    with no per-lane gathers. values: (N,); t: any shape.
-
-    Implemented as a fori_loop (scalar dynamic-slices of the table are fine
-    on TPU; a python unroll would inflate compile time by minutes on this
-    box). Differentiable in both `values` and `t`.
+    with no per-lane gathers. values: (N,); t: any shape. Differentiable in
+    both `values` and `t`.
     """
     return hat_eval_multi([values], t)[0]
 
@@ -75,10 +48,9 @@ def hat_eval_multi(tables, t):
     evaluation, M accumulations. tables: list of (N,), t: any shape.
 
     Unrolled statically over the N bins: XLA fuses the whole sum into ONE
-    elementwise kernel (t is read once, each accumulator written once —
-    no per-iteration HBM round trips). Measured on TPU: identical runtime
-    to the fori_loop form but ~50x faster to compile (4 s vs 200 s for
-    N=95, M=4); static numpy tables additionally fold to HLO constants."""
+    elementwise kernel (t is read once, each accumulator written once — no
+    per-iteration round trips through device memory); static numpy tables
+    additionally fold to HLO constants."""
     n = tables[0].shape[0]
     t = jnp.clip(t, 0.0, n - 1.0)
     accs = [jnp.zeros_like(t) for _ in tables]

@@ -1,16 +1,16 @@
 """Component-tuple SoA vector math — the wavefront's data layout.
 
-TPU VPU tiles are (8 sublanes x 128 lanes) over the two minor dims. Arrays
-shaped (L, 3) put the 3-vector in the lane dimension (3/128 = 2.3% VPU
-utilization) — the single biggest perf trap for a JAX renderer. We therefore
-carry every per-lane vector as a python tuple of component arrays:
+Arrays shaped (L, 3) interleave the 3-vector's components in the minor
+dimension, so every elementwise op strides through memory and vector units
+run a third full. We therefore carry every per-lane vector as a python tuple
+of component arrays:
 
     v3 = (x, y, z)         # each (L,) float32
     v2 = (u, v)
     spectra stay (4, L) jnp arrays ("Spec": wavelength-major, lane-minor)
 
-Each component is a full (L,) array -> XLA tiles it densely; all vector
-arithmetic decomposes into perfectly-utilized elementwise VPU ops. Tuples are
+Each component is a full contiguous (L,) array; all vector arithmetic
+decomposes into dense elementwise ops. Tuples are
 pytrees, so they flow through lax control flow and jit unchanged.
 """
 

@@ -1,8 +1,8 @@
 """Differentiable-rendering subsystem: VJP conventions + parameter leaves.
 
 The engine is differentiable end-to-end from a pixel loss to scene
-parameters under the **detached-sampling** convention (the BASELINE.md
-"pixel-gradient correctness" axis):
+parameters under the **detached-sampling** convention (checked against
+finite differences of pixel losses):
 
   * **Sample placement is detached.** Every sampled quantity that moves a
     ray (BSDF/phase sample directions, distance samples, intersections) is

@@ -26,24 +26,10 @@ Leaves:
   volumes     — (1, Npad) grid-volume density table (trilinear taps in
                 render/medium.py are linear in the densities).
 
-Replacers that own a paged-table shadow (env_rgb -> env_pages, bitmaps ->
-bitmap_pages) regenerate it with a traced jnp repack so the TPU paged-fetch
-primal stays consistent after a replace; gradients flow through the one-hot
-path, which diff_mode selects (the Pallas fetch has no VJP)."""
+Texel leaves are read by gathers (core/table.py fetch), whose VJP is a
+scatter-add into the table."""
 
 from dataclasses import replace as dc_replace
-
-
-def _jnp_pack_pages(table):
-    """Traced twin of render.paged_fetch.pack_pages: (C, N) -> (P, C, PAGE)."""
-    import jax.numpy as jnp
-
-    from misaki_tpu.render.paged_fetch import PAGE
-
-    C, N = table.shape
-    npad = -(-N // PAGE) * PAGE
-    out = jnp.pad(table, ((0, 0), (0, npad - N)))
-    return jnp.transpose(out.reshape(C, npad // PAGE, PAGE), (1, 0, 2))
 
 
 def _rep_materials(scene, v):
@@ -57,19 +43,8 @@ def _rep_emitter(field):
     return rep
 
 
-def _rep_env_rgb(scene, v):
-    """env texels + their paged shadow (keeps the TPU fetch primal in sync)."""
-    import jax.numpy as jnp
-
-    He, We = v.shape[0], v.shape[1]
-    pages = _jnp_pack_pages(jnp.transpose(v, (2, 0, 1)).reshape(3, He * We))
-    return scene.replace(
-        emitters=dc_replace(scene.emitters, env_rgb=v, env_pages=pages)
-    )
-
-
 def _rep_bitmaps(scene, v):
-    return scene.replace(bitmaps=v, bitmap_pages=_jnp_pack_pages(v))
+    return scene.replace(bitmaps=v)
 
 
 def _rep_volumes(scene, v):
@@ -87,7 +62,7 @@ DIFF_LEAVES = {
     "materials": (lambda s: s.materials.params, _rep_materials),
     "rad_coeff": (lambda s: s.emitters.rad_coeff, _rep_emitter("rad_coeff")),
     "rad_curve": (lambda s: s.emitters.rad_curve, _rep_emitter("rad_curve")),
-    "env_rgb": (lambda s: s.emitters.env_rgb, _rep_env_rgb),
+    "env_rgb": (lambda s: s.emitters.env_rgb, _rep_emitter("env_rgb")),
     "sigma_s_amp": (lambda s: s.media.sigma_s_amp, _rep_media("sigma_s_amp")),
     "sigma_a_amp": (lambda s: s.media.sigma_a_amp, _rep_media("sigma_a_amp")),
     "medium_scale": (lambda s: s.media.scale, _rep_media("scale")),

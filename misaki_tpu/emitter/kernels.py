@@ -2,10 +2,10 @@
 (reference: src/librender/emitters/{area,constant,point}.cpp and the uniform
 emitter selection in scene.cpp:68-112).
 
-Lane-last layout; gather-free: radiance spectra are (sigmoid coeff x 95-bin
-curve) models evaluated with hat-basis sums; per-emitter work is unrolled
-statically over `scene.emitter_kinds` with lane masks; area sampling fetches
-face data with a one-hot matmul.
+Lane-last layout: radiance spectra are (sigmoid coeff x 95-bin curve) models
+evaluated with hat-basis sums; per-emitter work is unrolled statically over
+`scene.emitter_kinds` with lane masks; area sampling gathers face data from
+the emitter's compact face pack (core/table.py fetch).
 """
 
 import jax.numpy as jnp
@@ -98,9 +98,9 @@ def eval_emitter(scene, emitter_ids, wi_local, uv, wavelengths, rad=None):
 
 # ---------------------------------------------------------------------------
 # environment map (stale-set parity: emitters/envmap.cpp — lat-long HDR with
-# 2D luminance-CDF importance sampling + sin-theta correction, redesigned
-# gather-free: texel fetches are one-hot MXU matmuls (core/table.py), CDF
-# inversion is compare-count reductions — no per-lane gathers anywhere).
+# 2D luminance-CDF importance sampling + sin-theta correction: texel and pmf
+# fetches are gathers (core/table.py fetch), CDF inversion is compare-count
+# reductions).
 # ---------------------------------------------------------------------------
 
 
@@ -142,10 +142,9 @@ def _env_uv_to_dir(scene, u, v):
 def _env_bilinear_rgb(scene, u, v):
     """Bilinear texel fetch from the (He, We, 3) map at texel centers.
 
-    Four one-hot fetches on the flat (3, He*We) table (gather-free); u wraps,
-    v clamps. Returns (r, g, b) tuples of (L,). Differentiable in env_rgb on
-    the one-hot path; in diff_mode the paged Pallas kernel (which has no
-    VJP) is bypassed so the gradient path always exists (advisor r4 #2)."""
+    Four gathers from the flat (3, He*We) table; u wraps, v clamps. Returns
+    (r, g, b) tuples of (L,). Differentiable in env_rgb (the gather's VJP
+    is a scatter-add)."""
     env = scene.emitters.env_rgb
     He, We = env.shape[0], env.shape[1]
     fu = u * We - 0.5
@@ -164,22 +163,9 @@ def _env_bilinear_rgb(scene, u, v):
         (i1i, j0i, (1.0 - tu) * tv),
         (i1i, j1i, tu * tv),
     )
-    from misaki_tpu.render.textures import _use_paged
-
-    paged, interp = _use_paged(He * We, getattr(scene, "diff_mode", False))
-    if paged:
-        from misaki_tpu.render.paged_fetch import paged_fetch
-
-        idx4 = jnp.stack([ii * We + jj for ii, jj, _ in taps], axis=0)
-        w4 = jnp.stack([w for _, _, w in taps], axis=0)
-        acc = paged_fetch(scene.emitters.env_pages, idx4, w4,
-                          interpret=interp)
-    else:
-        tex = jnp.moveaxis(env, -1, 0).reshape(3, He * We)
-        acc = None
-        for (ii, jj, w) in taps:
-            t4 = table.fetch(tex, ii * We + jj) * w[None, :]
-            acc = t4 if acc is None else acc + t4
+    tex = jnp.moveaxis(env, -1, 0).reshape(3, He * We)
+    acc = sum(table.fetch(tex, ii * We + jj) * w[None, :]
+              for ii, jj, w in taps)
     return (acc[0], acc[1], acc[2])
 
 
@@ -226,7 +212,7 @@ def _env_sample_dir(scene, u2):
     mhi = jnp.min(jnp.where(below, 1.0, marg[:, None]), axis=0)
     dv = jnp.clip((uy - mlo) / jnp.maximum(mhi - mlo, 1e-20), 0.0, 1.0 - 1e-6)
 
-    # --- column: fetch the row CDF (one-hot matmul), compare-count ---
+    # --- column: gather the row CDF, compare-count ---
     rows = table.fetch(em.env_cond_cdf.T, r)                # (We, L)
     belowc = ux[None, :] > rows
     c = jnp.clip(jnp.sum(belowc.astype(jnp.int32), 0), 0, We - 1)
@@ -280,10 +266,8 @@ def _sample_area_emitter(scene, ei, ref_p, wavelengths, u2, rad=None):
     # face pick by area CDF with sample reuse (distribution.h sample_reuse):
     # a single vectorized compare-count over the padded CDF row (one (Fmax, L)
     # broadcast — no per-face Python unroll, trace size is O(1) in Fmax),
-    # then ONE one-hot fetch of the compact per-emitter face pack — the
-    # (EF_COLS, Fmax) table replaces the global face_tab fetch whose (Fpad, L)
-    # one-hot cost ~512 MB of HBM traffic per bounce (Fmax is the emissive
-    # face count, typically orders of magnitude below Fpad).
+    # then ONE gather from the compact per-emitter face pack (EF_COLS, Fmax)
+    # with the bracketing CDF values and the face columns the sampler needs.
     uy = u2[1]
     fmax = cdf.shape[0]
     below = uy[None, :] > cdf[:, None]                      # (Fmax, L)

@@ -123,7 +123,7 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
         f_nee = bsdf.eval_bsdf(p, si["wi"], wo_nee)
         pdf_nee_bsdf = bsdf.pdf_bsdf(p, si["wi"], wo_nee)
         # Detached sampling: MIS weights are pdf ratios — stop their gradient
-        # (the "pdf-stopgrad" VJP convention from BASELINE.md north star).
+        # (the "pdf-stopgrad" VJP convention, misaki_tpu/diff/__init__.py).
         mis_w = jax.lax.stop_gradient(
             jnp.where(ds["delta"], 1.0, m.mis_power2(ds["pdf"], pdf_nee_bsdf))
         )
@@ -141,7 +141,6 @@ def sample_path(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
             wo_world,
             jnp.where(active, new_mint, 0.0),
             jnp.where(active, jnp.inf, -1.0),
-            coherent=False,
         )
         si_next = inter.compute_interaction(
             scene, next_hit, si["p"], wo_world, wavelengths
@@ -246,7 +245,6 @@ def _attenuated_transmittance(
             scene, o, d,
             jnp.where(alive, mint, 0.0),
             jnp.where(alive, maxt, -1.0),
-            coherent=False,
         )
         si = inter.compute_interaction(scene, hit, o, d, wavelengths)
         if has_mask:
@@ -479,7 +477,6 @@ def sample_volpath(scene, ray, rng_state, depth_cap=DEFAULT_MAX_DEPTH_CAP):
             scene, next_o, next_d,
             jnp.where(active, mint, 0.0),
             jnp.where(active, jnp.inf, -1.0),
-            coherent=False,
         )
         si_next = inter.compute_interaction(
             scene, next_hit, next_o, next_d, wavelengths
@@ -617,7 +614,6 @@ def sample_direct(scene, ray, rng_state):
             scene, si["p"], wo_world,
             jnp.where(go, inter.spawn_ray_mint(si["p"]), 0.0),
             jnp.where(go, jnp.inf, -1.0),
-            coherent=False,
         )
         si2 = inter.compute_interaction(scene, hit2, si["p"], wo_world, wavelengths)
         hit_area = si2["valid"] & (si2["emitter"] >= 0)
@@ -667,32 +663,12 @@ def sample_direct(scene, ray, rng_state):
 
 def sample_debug(scene, ray, rng_state):
     """The `debug` integrator (integrators/debug.cpp): |shading normal| as
-    color. Used by the bunny intersection-rate benchmark.
-
-    On the cluster path the whole shade chain runs in TILE order (raw=True):
-    the interaction/normal math is pointwise, so only the 3 final rgb rows
-    are inverse-relayouted instead of the hit record's 4 + 36 face rows —
-    the per-cast transpose traffic that capped the benchmark. (An earlier
-    attempt that kept lane order but truncated the payload with
-    fd_rows=FC_E1 measured ~1 ms SLOWER — partial-row relayouts hit a worse
-    XLA tiling.)"""
+    color. Used by the bunny intersection-rate benchmark."""
     hit = traverse.intersect(scene, ray["o"], ray["d"], ray["mint"],
-                             ray["maxt"], raw=True)
-    sw = hit.pop("sw", None)
-    if sw is None:
-        si = inter.compute_interaction(
-            scene, hit, ray["o"], ray["d"], ray["wavelengths"]
-        )
-        n = si["sh"]["n"]
-        rgb = tuple(jnp.where(si["valid"], jnp.abs(c), 0.0) for c in n)
-        return rgb, rng_state
-    L = hit.pop("n_lanes")
-    o_t, d_t = hit.pop("o"), hit.pop("d")
-    si = inter.compute_interaction(scene, hit, o_t, d_t, None)
-    n = si["sh"]["n"]
-    rgb_t = jnp.stack(
-        [jnp.where(si["valid"], jnp.abs(c), 0.0) for c in n], axis=0
+                             ray["maxt"])
+    si = inter.compute_interaction(
+        scene, hit, ray["o"], ray["d"], ray["wavelengths"]
     )
-    (rgb,) = sw.inv_multi([rgb_t[:, : sw.Lp]], L)
-    rgb = jax.lax.optimization_barrier(rgb)
-    return (rgb[0], rgb[1], rgb[2]), rng_state
+    n = si["sh"]["n"]
+    rgb = tuple(jnp.where(si["valid"], jnp.abs(c), 0.0) for c in n)
+    return rgb, rng_state

@@ -4,8 +4,8 @@ transmittance, and phase functions
 src/librender/phase/isotropic.cpp:12-27,
 src/librender/scene.cpp:114-184 eval_transmittance).
 
-TPU-native redesign notes
--------------------------
+Redesign notes
+--------------
 * The reference keeps RGB extinction coefficients and channel-samples over
   3 RGB channels (volpath.cpp:39). Our pipeline is spectral: sigma_s/sigma_a
   are upsampled to the 4 hero wavelengths via the same sigmoid model as every
@@ -13,8 +13,7 @@ TPU-native redesign notes
   and the distance-sampling channel is one of the 4 hero wavelengths. The
   pdf is the spectral mean, exactly mirroring homogeneous.cpp:26-44.
 * Per-lane medium state is an int32 id (-1 = vacuum); medium parameters are
-  fetched gather-free with the one-hot matmul (core/table.py) since M is
-  tiny.
+  gathered per lane (core/table.py fetch).
 * Phase: Henyey-Greenstein with g stored per medium — g == 0 reduces
   *exactly* to the reference's isotropic (uniform sphere, pdf = 1/4pi,
   weight 1).
@@ -46,8 +45,8 @@ def fetch_medium(scene, med_ids, wavelengths):
             "g": jnp.zeros(L),
             "vacuum": jnp.ones(L, bool),
         }
-    # Pack the per-medium scalars into one (C, M) matrix -> single one-hot
-    # fetch. Columns: ss coeffs(3), sa coeffs(3), ss_amp, sa_amp, scale, g.
+    # Pack the per-medium scalars into one (C, M) matrix -> single gather.
+    # Columns: ss coeffs(3), sa coeffs(3), ss_amp, sa_amp, scale, g.
     cols = jnp.concatenate(
         [
             med.sigma_s_coeff.T,                       # 0-2
@@ -97,9 +96,9 @@ def fetch_density_vol(scene, med_ids):
 def grid_density(scene, vol_ids, p):
     """Trilinear density of each lane's volume at world point p
     (volume.h Volume::eval generalized from constant3d to grids). Grids are
-    fetched gather-free from the flat (1, Npad) atlas with bf16 one-hot
-    matmuls (core/table.fetch_lowp — the bitmap-atlas pattern); the static
-    per-volume world->unit 3x4 lives in scene.volume_meta, so lanes in
+    gathered from the flat (1, Npad) atlas (core/table.fetch_lowp — the
+    bitmap-atlas pattern); the static per-volume world->unit 3x4 lives in
+    scene.volume_meta, so lanes in
     different volumes are handled by a masked unroll over the (few) grids.
     vol_ids: (L,) int32, -1 -> density 1. Outside a grid's bbox: 0."""
     meta = getattr(scene, "volume_meta", ())
@@ -107,7 +106,6 @@ def grid_density(scene, vol_ids, p):
     out = jnp.ones(L)
     if not meta:
         return out
-    atlas3 = jnp.broadcast_to(scene.volumes, (3, scene.volumes.shape[1]))
     for vi, (off, W, H, D, m12) in enumerate(meta):
         x = m12[0] * p[0] + m12[1] * p[1] + m12[2] * p[2] + m12[3]
         y = m12[4] * p[0] + m12[5] * p[1] + m12[6] * p[2] + m12[7]
@@ -137,7 +135,8 @@ def grid_density(scene, vol_ids, p):
             for yi, wy in ((y0i, 1.0 - ty), (y1i, ty)):
                 for xi, wx in ((x0i, 1.0 - tx), (x1i, tx)):
                     idx = jnp.where(sel, off + (zi * H + yi) * W + xi, 0)
-                    acc = acc + table.fetch_lowp(atlas3, idx)[0] * (wx * wy * wz)
+                    acc = acc + (table.fetch_lowp(scene.volumes, idx)[0]
+                                 * (wx * wy * wz))
         out = jnp.where(sel, jnp.where(inside, acc, 0.0), out)
     return out
 

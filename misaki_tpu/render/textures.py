@@ -6,9 +6,9 @@ Every BSDF texture is baked into its material's packed columns at scene
 compile: a spectral slot holds two sigmoid-coefficient triples (A and the
 checkerboard's second color B) plus a 2x3 UV transform; `uniform` values are
 encoded as degenerate sigmoids (exactly representable). Evaluation is pure
-closed-form VPU math — no table indirection, no gathers — except bitmap
-slots (slot[0] == 2), which bilinearly fetch the scene's mip-chained texel
-atlas with bf16 one-hot matmuls (core/table.py fetch_lowp); the mip level
+closed-form math with no table indirection, except bitmap slots
+(slot[0] == 2), which bilinearly fetch the scene's mip-chained texel atlas
+with four exact gathers (core/table.py fetch_lowp); the mip level
 comes from the primary-ray UV footprint (screen-space ray differentials,
 interaction.py _uv_partials) — an anti-aliasing upgrade over the
 reference's unfiltered bilinear (textures/bitmap.cpp:31-38).
@@ -46,45 +46,12 @@ def _checker_pick(slot, uv):
     return (u > 0.5) == (v > 0.5)
 
 
-def _use_paged(n_texels, diff_mode=False):
-    """Route big tables through the Pallas paged fetch on TPU (O(pages
-    touched) instead of O(texels) per fetch — render/paged_fetch.py);
-    MISAKI_FORCE_PAGED=1 forces the kernel in interpret mode for tests.
-
-    diff_mode forces the one-hot path: the Pallas kernel has no VJP, and the
-    one-hot matmuls transpose cleanly, so differentiable texture/env
-    optimization stays on the fetch that has gradients (advisor r4 #2)."""
-    import os
-
-    import jax
-
-    if diff_mode:
-        # one-hot fetches on a NATIVE-resolution envmap (tens of Mtexels)
-        # would be O(texels x lanes) — unusable. Fail loudly with the knob
-        # that restores a differentiable-scale table.
-        if n_texels > 16 * (1 << 20):
-            raise ValueError(
-                f"diff_mode needs the one-hot (differentiable) texel fetch, "
-                f"but this table has {n_texels} texels — recompile the scene "
-                f"with MISAKI_ENV_RGB_MAX_RES=1024,2048 (or smaller) for "
-                f"gradient-based optimization"
-            )
-        return False, False
-    if os.environ.get("MISAKI_FORCE_PAGED") == "1":
-        return True, True
-    from misaki_tpu.render.paged_fetch import PAGED_THRESHOLD
-
-    return (jax.default_backend() == "tpu"
-            and n_texels > PAGED_THRESHOLD), False
-
-
 def bitmap_fetch_rgb(scene, tex_id, u, v, duv=None):
     """Bilinear texel fetch of bitmap `tex_id` at (u, v) (wrapped, like the
     reference's uv - floor(uv), bitmap.cpp:31-32), from the mip level chosen
     by the screen-space footprint. The (static) level unroll only computes
-    ABSOLUTE tap indices + weights; the texels are then fetched once — via
-    the Pallas paged kernel on TPU for large atlases, else four one-hot
-    matmuls. Returns (r, g, b) tuples of (L,)."""
+    ABSOLUTE tap indices + weights; the texels are then fetched with four
+    gathers. Returns (r, g, b) tuples of (L,)."""
     W0, H0, levels = scene.bitmap_meta[tex_id]
     u = u - jnp.floor(u)
     v = v - jnp.floor(v)
@@ -127,19 +94,8 @@ def bitmap_fetch_rgb(scene, tex_id, u, v, duv=None):
             idx[k] = jnp.where(sel, off + ii * W + jj, idx[k])
             wgt[k] = jnp.where(sel, w, wgt[k])
 
-    idx4 = jnp.stack(idx, axis=0)
-    w4 = jnp.stack(wgt, axis=0)
-    paged, interp = _use_paged(scene.bitmaps.shape[1],
-                               getattr(scene, "diff_mode", False))
-    if paged:
-        from misaki_tpu.render.paged_fetch import paged_fetch
-
-        out = paged_fetch(scene.bitmap_pages, idx4, w4, interpret=interp)
-    else:
-        atlas = scene.bitmaps  # (3, Npad)
-        out = sum(
-            fetch_lowp(atlas, idx4[k]) * w4[k][None, :] for k in range(4)
-        )
+    atlas = scene.bitmaps  # (3, Npad)
+    out = sum(fetch_lowp(atlas, idx[k]) * wgt[k][None, :] for k in range(4))
     return (out[0], out[1], out[2])
 
 

@@ -1,8 +1,8 @@
 """Compiled scene representation: frozen SoA device arrays + static tables.
 
 This replaces the reference's runtime object graph (Object/Class/Properties,
-include/misaki/core/{object,class,manager,properties}.h) with the TPU-native
-equivalent: a **scene compiler output** — one flat pytree of arrays consumed
+include/misaki/core/{object,class,manager,properties}.h) with a
+**scene compiler output** — one flat pytree of arrays consumed
 by jitted wavefront kernels, plus hashable static metadata. Pointer-chasing
 virtual dispatch becomes integer tables + compute-all-and-select kernels.
 """
@@ -72,8 +72,8 @@ def pytree_dataclass(cls):
 
 
 # ---- packed face-table column indices (Geometry.face_tab rows) ----
-# Fetched per hit with ONE one-hot matmul (core/table.py fetch) — per-lane
-# gathers are pathological on TPU, so every per-face quantity lives here.
+# Fetched per hit with ONE column gather (core/table.py fetch), so every
+# per-face quantity lives here.
 FC_NG = 0          # 0-2  geometric normal
 FC_TANGENT = 3     # 3-5  raw dp_du (UV-derived or canonical ONB fallback)
 FC_N0 = 6          # 6-14 vertex shading normals n0, n1, n2
@@ -137,10 +137,9 @@ SCALAR_SLOT_COLS = 9
 
 
 # ---- compact per-emitter face-pack columns (EmitterTable.face_pack) ----
-# NEE area sampling needs only these per-face quantities; fetching them from
-# a (EF_COLS, Fmax) table with Fmax = max emissive faces is ~Fpad/Fmax times
-# cheaper than the global face_tab one-hot it replaces (the one-hot operand
-# is (N, L) — 512 MB per bounce at Fpad=128, L=1M).
+# NEE area sampling needs only these per-face quantities, gathered from a
+# (EF_COLS, Fmax) table with Fmax = max emissive faces (one gather returns
+# the bracketing CDF values and the face data together).
 EF_CDF_LO = 0      # bracketing CDF values for sample reuse
 EF_CDF_HI = 1
 EF_P0 = 2          # 2-4
@@ -160,7 +159,7 @@ class Geometry:
     Mirrors the reference Mesh's interleaved buffers (mesh.h:89-93) but
     decomposed into component rows, pre-transformed to world space at compile
     time (obj.cpp applies to_world at load too), and padded to a FACE_BLOCK
-    multiple so the brute-force intersector streams full VPU tiles.
+    multiple so the brute-force intersector streams whole face blocks.
     """
 
     p0: Any  # (3, Fpad) float32 — first-vertex component rows
@@ -207,11 +206,6 @@ class EmitterTable:
     env_cond_cdf: Any  # (He, We) float32 — per-row conditional CDF
     env_to_world: Any  # (3, 3) float32 — rotation part of to_world
     env_to_local: Any  # (3, 3) float32 — inverse rotation
-    # paged layout of env_rgb for the Pallas random-access fetch
-    # (render/paged_fetch.py) — high-res maps on TPU route through it
-    env_pages: Any = field(
-        default_factory=lambda: np.zeros((1, 3, 1024), np.float32)
-    )
 
 
 @pytree_dataclass
@@ -259,7 +253,6 @@ class BVH:
 class CompiledScene:
     geometry: Geometry
     bvh: BVH
-    cluster: Any           # accel.cluster.ClusterAccel (TPU Pallas intersector)
     materials: MaterialTable
     emitters: EmitterTable
     media: MediumTable
@@ -309,14 +302,10 @@ class CompiledScene:
     # training loops flip it with scene.replace(diff_mode=True)
     diff_mode: bool = False
     # bitmap texture atlas: all bitmap textures' mip chains flattened into
-    # one (3, Npad) linear-RGB table (fetched with one-hot matmuls); meta is
+    # one (3, Npad) linear-RGB table (gathered per tap); meta is
     # a static tuple of per-texture (W0, H0, ((offset, W, H), ...per level)).
     bitmaps: Any = field(default_factory=lambda: np.zeros((3, 8), np.float32))
     bitmap_meta: tuple = ()
-    # paged layout of `bitmaps` for the Pallas random-access fetch
-    bitmap_pages: Any = field(
-        default_factory=lambda: np.zeros((1, 3, 1024), np.float32)
-    )
     # static set of material-slot base columns (MC_REFL / MC_SPEC_REFL /
     # MC_SPEC_TRANS / MC_ALPHA_*) that reference a bitmap texture — slots
     # not listed here skip the atlas fetch entirely at trace time
@@ -328,7 +317,7 @@ class CompiledScene:
     ppm_iterations: int = 8
     ppm_radius: float = 0.0
     # spatially-varying density volumes (reference volume.h): all grids
-    # flattened into one (1, Npad) table fetched with one-hot matmuls;
+    # flattened into one (1, Npad) table gathered per tap;
     # volume_meta is a static tuple of (offset, W, H, D, world_to_unit
     # 12-float row-major 3x4) per volume
     volumes: Any = field(default_factory=lambda: np.zeros((1, 8), np.float32))

@@ -89,7 +89,7 @@ def test_bitmap_compiles_and_fetches(bitmap_scene):
         ii = np.clip(i0 + di, 0, 7)
         jj = (j0 + dj) % 8
         ref += img[ii, jj] * w[:, None]
-    # bf16 texels + bf16 one-hot accumulate ~1% quantization
+    # the .hdr file stores RGBE texels (8-bit mantissas): ~1% quantization
     np.testing.assert_allclose(got, ref, rtol=0.02, atol=0.01)
 
 
@@ -139,26 +139,26 @@ def test_uv_partials_closed_form(bitmap_scene):
     np.testing.assert_allclose(duv_dx_u, fd_u, rtol=2e-2, atol=2e-5)
 
 
-def test_bitmap_paged_kernel_parity(bitmap_scene, monkeypatch):
-    """The Pallas paged fetch (MISAKI_FORCE_PAGED routes it in interpret
-    mode off-TPU) must reproduce the one-hot mip fetch, including the
-    footprint-driven level select."""
-    scene, _ = bitmap_scene
-    import numpy as np
+def test_bitmap_bilinear_matches_numpy(bitmap_scene):
+    """The level-0 fetch (no footprint) is a bilinear tap of the base
+    texels, wrapped in u and v (bitmap.cpp:31-38), read exactly from the
+    float32 atlas."""
+    scene, img = bitmap_scene
     rng = np.random.default_rng(9)
-    L = 257  # deliberately not a tile multiple (exercises sort padding)
-    u = jnp.asarray(rng.uniform(size=L).astype(np.float32))
-    v = jnp.asarray(rng.uniform(size=L).astype(np.float32))
-    duv = (
-        (jnp.asarray(rng.uniform(0, 0.02, L).astype(np.float32)),
-         jnp.asarray(rng.uniform(0, 0.02, L).astype(np.float32))),
-        (jnp.asarray(rng.uniform(0, 0.02, L).astype(np.float32)),
-         jnp.asarray(rng.uniform(0, 0.02, L).astype(np.float32))),
-    )
-    base = np.stack([np.asarray(c) for c in
-                     tex.bitmap_fetch_rgb(scene, 0, u, v, duv)])
-    monkeypatch.setenv("MISAKI_FORCE_PAGED", "1")
-    paged = np.stack([np.asarray(c) for c in
-                      tex.bitmap_fetch_rgb(scene, 0, u, v, duv)])
-    # fetch_lowp truncates texels to bf16; the paged kernel is exact f32
-    np.testing.assert_allclose(paged, base, rtol=1e-2, atol=1e-3)
+    L = 257
+    u = rng.uniform(-1.0, 2.0, size=L).astype(np.float32)
+    v = rng.uniform(-1.0, 2.0, size=L).astype(np.float32)
+    got = np.stack([np.asarray(c) for c in tex.bitmap_fetch_rgb(
+        scene, 0, jnp.asarray(u), jnp.asarray(v))], -1)
+
+    W0, H0, levels = scene.bitmap_meta[0]
+    off, W, H = levels[0]
+    base = np.asarray(scene.bitmaps)[:, off:off + W * H].T.reshape(H, W, 3)
+    fu = (u - np.floor(u)) * W - 0.5
+    fv = (v - np.floor(v)) * H - 0.5
+    j0, i0 = np.floor(fu).astype(int), np.floor(fv).astype(int)
+    tu, tv = (fu - j0)[:, None], (fv - i0)[:, None]
+    j0, j1, i0, i1 = j0 % W, (j0 + 1) % W, i0 % H, (i0 + 1) % H
+    want = ((1 - tu) * (1 - tv) * base[i0, j0] + tu * (1 - tv) * base[i0, j1]
+            + (1 - tu) * tv * base[i1, j0] + tu * tv * base[i1, j1])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

@@ -1,7 +1,6 @@
-"""Differentiability (finite-difference validation) and multi-chip sharding
-tests (BASELINE.md: pixel-gradient allclose vs. finite differences; >= 85%
-scaling efficiency is measured on hardware, correctness here on the virtual
-8-device CPU mesh)."""
+"""Differentiability (finite-difference validation) and multi-device sharding
+tests (pixel-gradient allclose vs. finite differences; sharding correctness
+on the virtual 8-device CPU mesh)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +11,9 @@ from misaki_tpu.render import film as film_mod
 from misaki_tpu.render.driver import render
 from misaki_tpu.scene.compiler import compile_scene, load_and_compile
 from misaki_tpu.scene.loader import load_string
+from misaki_tpu.scene.assets import scene_path
 
-CBOX = "/root/reference/assets/cbox/scene.xml"
+CBOX = scene_path("cbox")
 
 
 def _render_rgb_with_params(scene, mat_params, seed=0, depth_cap=2):
@@ -104,11 +104,22 @@ def test_sharded_render_matches_single_device(cbox_tiny):
     same function. So assert near-total agreement (catches any real
     partitioning/seeding bug, which would corrupt whole device blocks) while
     tolerating isolated sample-level flips."""
+    _check_sharded_matches_single(cbox_tiny)
+
+
+def test_sharded_render_in_chunks_matches_single_device(cbox_tiny):
+    """The same with each device's lane block rendered in 3 chunks of 80
+    lanes (192 per device: the last chunk runs past the block, and past the
+    frame on the last device)."""
+    _check_sharded_matches_single(cbox_tiny, chunk_size=80)
+
+
+def _check_sharded_matches_single(scene, chunk_size=1 << 20):
     from misaki_tpu.parallel.sharding import make_mesh, render_sharded
 
-    scene = cbox_tiny
     mesh = make_mesh(8)
-    film_multi = np.asarray(render_sharded(mesh, scene, seed=5, depth_cap=3))
+    film_multi = np.asarray(render_sharded(mesh, scene, seed=5, depth_cap=3,
+                                           chunk_size=chunk_size))
 
     out = render(scene, seed=5, chunk_size=1 << 20, depth_cap=3)
     film_single = np.asarray(out["film"])

@@ -221,9 +221,8 @@ def test_volume_density_gradient_matches_fd(tmp_path_factory):
           - float(f_tr({"volumes": v0["volumes"] - d_v["volumes"]}))) / 2.0
     expected = float(np.sum(g * np.asarray(d_v["volumes"])))
     assert expected > 0
-    # 12%: the density fetch is bf16 (core/table.fetch_lowp), so the primal
-    # is a bf16 staircase (~2^-8 steps) that the 0.01 central difference
-    # straddles; AD passes through the cast smoothly. Measured ~7.5%.
+    # 12%: the transmittance is exponential in the densities, so the 0.01
+    # central difference carries curvature error the linear AD term lacks.
     assert abs(fd - expected) <= 0.12 * abs(expected), (fd, expected)
 
     # ---- e2e layer: the render carries a finite, nonzero voxel gradient

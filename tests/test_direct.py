@@ -7,8 +7,9 @@ import pytest
 
 from misaki_tpu.render.driver import render
 from misaki_tpu.scene.compiler import load_and_compile
+from misaki_tpu.scene.assets import scene_path
 
-CBOX = "/root/reference/assets/cbox/scene.xml"
+CBOX = scene_path("cbox")
 
 
 @pytest.fixture(scope="module")

@@ -235,14 +235,9 @@ def test_envmap_render_e2e(env_scene):
     assert img.mean() > 0.01  # env is visible + lights the quad
 
 
-def test_envmap_1024x2048_full_res(tmp_path, monkeypatch):
-    """Judge r3 ask #4: a 1024x2048 HDR must compile WITHOUT downsampling
-    (ENV_MAX_RES raised; the TPU path fetches it with the Pallas paged
-    kernel) and the bilinear fetch must return the exact texel values.
-    The cap is backend-conditional (advisor r4 #3) — on the CPU test
-    backend the paged kernel cannot engage, so force the TPU-default cap
-    via the override env var."""
-    monkeypatch.setenv("MISAKI_ENV_MAX_RES", "1024,2048")
+def test_envmap_1024x2048_full_res(tmp_path):
+    """A 1024x2048 HDR must compile WITHOUT downsampling (ENV_MAX_RES) and
+    the bilinear fetch must return the exact texel values."""
     H, W = 1024, 2048
     iy, ix = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     rgb = np.stack([
@@ -257,7 +252,7 @@ def test_envmap_1024x2048_full_res(tmp_path, monkeypatch):
     scene = load_and_compile(str(tmp_path / "scene.xml"))
     env = np.asarray(scene.emitters.env_rgb)
     assert env.shape == (1024, 2048, 3)  # full res retained
-    # texel-center fetch returns the exact stored texels (one-hot path)
+    # texel-center fetch returns the exact stored texels
     L = 64
     rng = np.random.default_rng(2)
     ii = rng.integers(0, H, L)
@@ -270,8 +265,8 @@ def test_envmap_1024x2048_full_res(tmp_path, monkeypatch):
 
 
 def test_native_radiance_decoupled_from_sampler(tmp_path, monkeypatch):
-    """Judge r4 missing #5: on paged backends the RADIANCE texels keep
-    native resolution while the importance-sampling tables are built from a
+    """The RADIANCE texels keep native resolution while the
+    importance-sampling tables are built from a
     downsampled copy. The pdf describes the sampler's own distribution, so
     the estimator stays unbiased: renders with coarse vs full-res sampler
     tables must converge to the same image (radiance is identical)."""
@@ -284,7 +279,6 @@ def test_native_radiance_decoupled_from_sampler(tmp_path, monkeypatch):
     xml = SCENE_XML.format(depth=2, hdr="env.hdr", scale=1.0, obj="quad.obj")
     (tmp_path / "scene.xml").write_text(xml)
 
-    monkeypatch.setenv("MISAKI_FORCE_PAGED", "1")   # paged-available compile
     monkeypatch.setenv("MISAKI_ENV_MAX_RES", "8,16")
     coarse = load_and_compile(str(tmp_path / "scene.xml"), spp=64)
     assert np.asarray(coarse.emitters.env_rgb).shape == (32, 64, 3)
@@ -304,9 +298,9 @@ def test_native_radiance_decoupled_from_sampler(tmp_path, monkeypatch):
     assert rel < 0.08, (img_c.mean(), img_f.mean())
 
 
-def test_envmap_paged_kernel_parity(tmp_path, monkeypatch):
-    """MISAKI_FORCE_PAGED routes the same fetch through the Pallas paged
-    kernel (interpret mode off-TPU); results must match the one-hot path."""
+def test_envmap_bilinear_matches_numpy(tmp_path):
+    """The env fetch is a bilinear tap at texel centers — u wraps, v clamps
+    — read exactly from the float32 texels."""
     H, W = 64, 128
     rng = np.random.default_rng(3)
     rgb = rng.uniform(0.0, 4.0, (H, W, 3)).astype(np.float32)
@@ -315,12 +309,18 @@ def test_envmap_paged_kernel_parity(tmp_path, monkeypatch):
     xml = SCENE_XML.format(depth=2, hdr="env.hdr", scale=1.0, obj="quad.obj")
     (tmp_path / "scene.xml").write_text(xml)
     scene = load_and_compile(str(tmp_path / "scene.xml"))
+    env = np.asarray(scene.emitters.env_rgb)
     L = 300
-    u = jnp.asarray(rng.uniform(size=L).astype(np.float32))
-    v = jnp.asarray(rng.uniform(size=L).astype(np.float32))
-    base = np.stack([np.asarray(c) for c in ek._env_bilinear_rgb(scene, u, v)])
-    monkeypatch.setenv("MISAKI_FORCE_PAGED", "1")
-    paged = np.stack([np.asarray(c) for c in ek._env_bilinear_rgb(scene, u, v)])
-    # one-hot path uses bf16-table fetch for RGBE-quantized data; the paged
-    # kernel fetches at full f32 — tolerance covers the bf16 delta
-    np.testing.assert_allclose(paged, base, rtol=1e-2, atol=1e-3)
+    u = rng.uniform(size=L).astype(np.float32)
+    v = rng.uniform(size=L).astype(np.float32)
+    got = np.stack([np.asarray(c) for c in ek._env_bilinear_rgb(
+        scene, jnp.asarray(u), jnp.asarray(v))], -1)
+
+    fu, fv = u * W - 0.5, v * H - 0.5
+    j0, i0 = np.floor(fu).astype(int), np.floor(fv).astype(int)
+    tu, tv = (fu - j0)[:, None], (fv - i0)[:, None]
+    j1, j0 = (j0 + 1) % W, j0 % W
+    i1, i0 = np.clip(i0 + 1, 0, H - 1), np.clip(i0, 0, H - 1)
+    want = ((1 - tu) * (1 - tv) * env[i0, j0] + tu * (1 - tv) * env[i0, j1]
+            + (1 - tu) * tv * env[i1, j0] + tu * tv * env[i1, j1])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

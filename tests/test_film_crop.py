@@ -7,8 +7,9 @@ import numpy as np
 from misaki_tpu.render.driver import render
 from misaki_tpu.scene.compiler import compile_scene
 from misaki_tpu.scene.loader import load_file, load_string
+from misaki_tpu.scene.assets import scene_path
 
-CBOX = "/root/reference/assets/cbox/scene.xml"
+CBOX = scene_path("cbox")
 
 
 def _cbox_desc(extra_film_props=""):

@@ -1,19 +1,14 @@
-"""Golden-image parity tests (VERDICT r2 ask #2: "image parity with teeth").
+"""Golden-image parity tests ("image parity with teeth").
 
 Each committed golden (tests/goldens/*.npz, generated by
-tools/gen_goldens.py on the CPU backend at a fixed seed) is re-rendered
-with identical settings and compared:
+tools/gen_goldens.py on the CPU backend at a fixed seed from the shipped
+scenes) is re-rendered with identical settings and compared:
 
   * texel-level: the render is deterministic per (platform, seed), so the
     bulk of texels must match tightly — only XLA version-to-version fusion
     drift is tolerated;
   * statistics: mean image error must be tiny — a regression in any
     material / emitter / sampling / film stage moves many texels at once.
-
-Also compares the Figure_2 render's tone-mapped statistics against the
-reference's PUBLISHED image (results/resources/images/..., rendered with
-the real material-testball OBJ, which the reference repo does not ship —
-hence a loose, documented tolerance on scene-level statistics only).
 """
 
 import os
@@ -40,45 +35,3 @@ def test_golden_image(name):
     frac_off = float((err > 1e-3).mean())
     assert frac_off < 0.02, f"{name}: {frac_off:.2%} texels differ"
     assert float(err.mean()) < 1e-3, f"{name}: mean rel err {err.mean():.2e}"
-
-
-def _hist_intersection(a8, b8, bins=32):
-    """Intersection of normalized 32-bin tone-mapped luminance histograms
-    (in [0, 1]; 1 = identical distributions)."""
-    la = a8.mean(axis=-1).ravel()
-    lb = b8.mean(axis=-1).ravel()
-    ha, _ = np.histogram(la, bins=bins, range=(0.0, 1.0))
-    hb, _ = np.histogram(lb, bins=bins, range=(0.0, 1.0))
-    return float(np.minimum(ha / ha.sum(), hb / hb.sum()).sum())
-
-
-@pytest.mark.parametrize("name,png", [
-    ("figure2_roughconductor",
-     "Figure_2_RoughConductor/roughconductor.png"),
-    ("figure3_roughdielectric",
-     "Figure_3_RoughDielectric/roughdielectric.png"),
-])
-def test_statistics_vs_published_png(name, png):
-    """Brightness-distribution parity against the reference's PUBLISHED
-    renders (judge r3 ask #7: a justified metric, both figures). The
-    test-ball geometry is a stand-in (the OBJ is absent from the reference
-    tree — BASELINE.md caveat), so per-pixel comparison is impossible; the
-    32-bin luminance histogram intersection is the scene-level metric.
-
-    Threshold justification (measured): the real renders score 0.62
-    (Figure_2) and 0.71 (Figure_3); broken baselines score far below —
-    all-black 0.00, flat-gray 0.03/0.08, value-inverted 0.13/0.20. 0.45
-    separates them by a wide margin in both directions."""
-    ref_png = f"/root/reference/results/resources/images/{png}"
-    if not os.path.exists(ref_png):
-        pytest.skip("reference image unavailable")
-    from PIL import Image
-
-    ref = np.asarray(Image.open(ref_png).convert("RGB"), np.float32) / 255.0
-
-    got = render_golden(name)
-    from misaki_tpu.render.film import to_srgb8
-
-    got8 = to_srgb8(got).astype(np.float32) / 255.0
-    inter = _hist_intersection(got8, ref)
-    assert inter > 0.45, f"{name}: histogram intersection {inter:.3f}"

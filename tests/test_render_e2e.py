@@ -9,8 +9,9 @@ import pytest
 from misaki_tpu.scene.compiler import compile_scene, load_and_compile
 from misaki_tpu.scene.loader import load_string
 from misaki_tpu.render.driver import render
+from misaki_tpu.scene.assets import scene_path
 
-CBOX = "/root/reference/assets/cbox/scene.xml"
+CBOX = scene_path("cbox")
 
 
 FURNACE_XML = """
@@ -101,7 +102,7 @@ def test_render_deterministic(cbox_small):
 
 def test_render_chunk_invariant(cbox_small):
     """The image must not depend on wavefront chunking (lane == pixel*spp+s
-    seeding): the TPU replacement for tile-order independence."""
+    seeding): the wavefront replacement for tile-order independence."""
     a = render(cbox_small, seed=3, chunk_size=1 << 16, depth_cap=4)
     b = render(cbox_small, seed=3, chunk_size=1 << 13, depth_cap=4)
     assert np.allclose(np.asarray(a["rgb"]), np.asarray(b["rgb"]), atol=2e-5)

@@ -10,8 +10,9 @@ from misaki_tpu.render import medium as med
 from misaki_tpu.render.driver import render
 from misaki_tpu.scene.compiler import compile_scene, load_and_compile
 from misaki_tpu.scene.loader import load_string
+from misaki_tpu.scene.assets import scene_path
 
-TEAPOT = "/root/reference/assets/teapot-full/scene.xml"
+TEAPOT = scene_path("teapot-full")
 
 
 def _mp(sigma_s, sigma_a, g=0.0, L=1):

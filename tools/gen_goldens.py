@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Generate the committed golden renders (tests/goldens/*.npz) used by
-tests/test_golden_images.py — VERDICT r2 ask #2: image-parity with teeth.
+tests/test_golden_images.py: image parity with teeth.
 
-Run on the CPU backend (the cross-accel identity is checked separately by
-tools/check_tpu_cpu_parity.py): renders each parity scene at a small fixed
+Run on the CPU backend (the GPU-vs-CPU identity is checked separately by
+tools/check_gpu_cpu_parity.py): renders each shipped scene at a small fixed
 configuration and a fixed seed and stores the linear-RGB image. The test
 re-renders with identical settings and asserts closeness — any regression
 in materials / emitters / sampling / film shows up as a diff.
@@ -25,28 +25,24 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 GOLDENS = {
-    # name: (scene path, dict of compile overrides, seed, depth_cap)
-    "cbox": ("/root/reference/assets/cbox/scene.xml",
-             dict(spp=16, width=64, height=48), 7, 4),
-    "figure2_roughconductor": (
-        "/root/reference/results/Figure_2_RoughConductor/roughconductor.xml",
-        dict(spp=8, width=96, height=54), 7, 4),
-    "figure3_roughdielectric": (
-        "/root/reference/results/Figure_3_RoughDielectric/roughdielectric.xml",
-        dict(spp=8, width=96, height=54), 7, 6),
-    "teapot_volpath": ("/root/reference/assets/teapot-full/scene.xml",
-                       dict(spp=8, width=64, height=36), 7, 6),
-    "bunny_debug": ("/root/reference/assets/bunny/scene.xml",
-                    dict(spp=4, width=64, height=64), 7, 2),
+    # name: (scene name, dict of compile overrides, seed, depth_cap)
+    "cbox": ("cbox", dict(spp=16, width=64, height=48), 7, 4),
+    "figure2_roughconductor": ("figure2_roughconductor",
+                               dict(spp=8, width=96, height=54), 7, 4),
+    "figure3_roughdielectric": ("figure3_roughdielectric",
+                                dict(spp=8, width=96, height=54), 7, 6),
+    "teapot_volpath": ("teapot-full", dict(spp=8, width=64, height=36), 7, 6),
+    "bunny_debug": ("bunny", dict(spp=4, width=64, height=64), 7, 2),
 }
 
 
 def render_golden(name):
+    from misaki_tpu.scene.assets import scene_path
     from misaki_tpu.scene.compiler import load_and_compile
     from misaki_tpu.render.driver import render
 
-    path, kw, seed, depth = GOLDENS[name]
-    scene = load_and_compile(path, **kw)
+    scene_name, kw, seed, depth = GOLDENS[name]
+    scene = load_and_compile(scene_path(scene_name), **kw)
     out = render(scene, seed=seed, depth_cap=depth)
     return np.asarray(out["rgb"], np.float32)
 
